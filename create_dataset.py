@@ -4,7 +4,8 @@
 Drop-in equivalent of the reference's create_dataset.py (same flags
 --n-filters / --filterbank, same output artifact
 speech_spike_dataset_pure_redundancy.npz, same directory-walk semantics),
-backed by the batched TPU featurizer instead of a per-file Python loop.
+backed by the batched on-device featurizer instead of a per-file Python
+loop.
 Extensions: --data-dir, --synthetic, --vocab, --batch-size.
 """
 

@@ -51,7 +51,7 @@ def main() -> None:
                              "residency anywhere); 'logistic' is the "
                              "REFERENCE readout (multinomial LBFGS, "
                              "train_classifier.py:36-41) at corpus scale "
-                             "— streamed features are held in device HBM "
+                             "— streamed features are held in device memory "
                              "(~0.8 GB per 100k utts at 2000-d, sharded "
                              "over the mesh data axis incl. multi-host), "
                              "host memory stays flat, and predictions "

@@ -1,7 +1,7 @@
-"""TPU-native Liquid State Machine speech classification framework.
+"""Liquid State Machine speech classification framework on JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-adelitoo/lsm-speech-classifier (reference mounted at /root/reference):
+A from-scratch JAX/XLA rebuild of the capabilities of
+adelitoo/lsm-speech-classifier:
 audio -> (mel | gammatone) spectrogram -> multi-threshold hysteresis spike
 encoding -> batched LIF reservoir simulation -> streaming spike statistics
 -> standardized features -> multinomial logistic readout.

@@ -1,4 +1,4 @@
-"""Configuration dataclasses for the TPU-native LSM speech pipeline.
+"""Configuration dataclasses for the LSM speech pipeline.
 
 These mirror the reference's flag/constant surface (reference:
 create_dataset.py:10-17, extract_lsm_features.py:10-16, main.py:33-59)
@@ -143,7 +143,7 @@ class ReservoirConfig:
     # (fraction small_world_p) land inside the source block's partner
     # blocks instead of uniformly over all neurons, which makes the weight
     # matrix BLOCK-sparse (band + R blocks per block-row) so the recurrent
-    # matmul/HBM cost scales with the ~10% true density instead of N^2.
+    # matmul and memory cost scale with the ~10% true density instead of N^2.
     # Same out-degree k/2, same weight distribution, same small-world
     # short-path property (an R-regular random block digraph is an
     # expander); the reservoir contract is statistical (SURVEY.md 2.3).
@@ -183,8 +183,8 @@ class PipelineConfig:
     test_size: float = 0.2             # extract_lsm_features.py:161
     split_seed: int = 42
     commands: Tuple[str, ...] = COMMANDS_12
-    # Compute batch size for featurization / reservoir simulation. Chosen
-    # so the per-step (B, N) x (N, N) recurrent matmul saturates the MXU.
+    # Compute batch size for featurization / reservoir simulation: the
+    # per-step recurrent matmul is (B, N) x (N, N), so B sets its size.
     batch_size: int = 512
     # Debug sanitizer mode (--check; SURVEY.md section 5.2): route the
     # single-device stage computations through checkify float checks

@@ -1,6 +1,6 @@
 """Reservoir health diagnostics (edge-of-chaos regime check).
 
-TPU-native equivalent of `run_network_diagnostics`
+On-device equivalent of `run_network_diagnostics`
 (extract_lsm_features.py:92-152): run a few samples, measure per-neuron
 participation across the FULL reservoir, classify the dynamical regime, and
 emit tuning advice. Unlike the reference (which reads the dense Time x

@@ -60,8 +60,7 @@ class StreamPool:
         uint8 mu-law). Inferred from the first fed hop; set it explicitly
         if an all-silent hop can precede the first fed one, so the silent
         hop traces the SAME step_active program the fed hops will use (a
-        dtype flip mid-serving costs a fresh fused-step compile — minutes
-        through the remote compile service)."""
+        dtype flip mid-serving costs a fresh fused-step compile)."""
         self.kws = kws
         self._free = list(range(kws.n_streams - 1, -1, -1))  # pop -> slot 0 first
         self._slot_of: Dict[Hashable, int] = {}
@@ -138,7 +137,7 @@ class StreamPool:
             # by exactly one hop of the deployment's cadence, in the
             # deployment's WIRE DTYPE (a float32 guess on a mu-law pool
             # would trace a fresh fused-step program the first time the
-            # fleet goes quiet — minutes through the remote compiler).
+            # fleet goes quiet).
             # The zero-row array carries no bytes; only its dtype picks
             # the program, and the engine synthesizes wire_silence(dtype)
             # on device for every slot.
@@ -298,7 +297,7 @@ class StreamPool:
                 dst_pool._free.append(dst_pool._slot_of.pop(s))
             raise
         # Recycle the source slots: one masked reset dispatch, not one
-        # per session (each standalone dispatch costs a relay round-trip).
+        # per session.
         self.kws.reset(np.asarray(src_idx))
         for s in session_ids:
             self._free.append(self._slot_of.pop(s))

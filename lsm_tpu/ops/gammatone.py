@@ -1,4 +1,4 @@
-"""Gammatone (ERB) filterbank spectrogram — "gtgram" — TPU-native.
+"""Gammatone (ERB) filterbank spectrogram — "gtgram".
 
 Reproduces the behavior of `gammatone.gtgram.gtgram(wave, fs, window_time,
 hop_time, channels, f_min)` as used by the reference (create_dataset.py:51-58):
@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -160,8 +160,8 @@ def _block_iir_matrices(fs: float, channels: int, f_min: float, L: int):
     sequential filter on basis vectors (L input impulses + 8 state units) —
     no algebra to get wrong, bit-exact vs. the scalar recurrence up to f32.
     This turns the 16000-step sample recurrence into S/L sequential steps of
-    batched (B, L) x (L, L) matmuls per channel — MXU work instead of a
-    latency-bound scalar scan (the TPU-first formulation of an IIR).
+    batched (B, L) x (L, L) matmuls per channel — matrix-unit work instead
+    of a latency-bound scalar scan.
 
     Returns (M_yx (C,L,L), M_sy (C,8,L), M_xs (C,L,8), M_ss (C,8,8)) f32.
     """
@@ -227,8 +227,8 @@ def gtgram_iir_scan(
     C = channels
     m_yx, m_sy, m_xs, m_ss = _block_iir_matrices(fs, channels, f_min, g)
 
-    # Flatten the per-channel block maps into single 2D matmuls so the MXU
-    # sees one big (B, g) x (g, g*C) contraction per step instead of C small
+    # Flatten the per-channel block maps into single 2D matmuls so the
+    # device sees one big (B, g) x (g, g*C) contraction per step instead of C small
     # batched ones (and XLA output-fuses the +state / square / reduce
     # epilogue instead of materializing per-channel intermediates):
     #   W_yx[l, m*C + c] = M_yx[c, l, m]  -> Y (B, g*C), minor dim = channel
@@ -238,17 +238,22 @@ def gtgram_iir_scan(
     m_sy_t = jnp.asarray(np.ascontiguousarray(m_sy.transpose(1, 2, 0)))  # (8, g, C)
     m_ss_t = jnp.asarray(np.ascontiguousarray(m_ss.transpose(1, 2, 0)))  # (8, 8, C)
 
-    # Precision: the STATE path must be exact — the TPU default (bf16
-    # operands) breaks near-unit-circle IIR state propagation over 200 block
-    # steps — so x@W_xs runs at HIGHEST and the M_ss/M_sy state terms run as
-    # exact f32 VPU broadcast multiply-adds. Expressing the state terms as 8
-    # broadcast terms (instead of a batched einsum) is also the key
-    # PERFORMANCE move: XLA fuses broadcasts + add + square + reduce into one
-    # pass over the (B, g, C) block, so only the y_x matmul output ever
-    # materializes in HBM — measured 2.7x faster than the einsum form. The
+    # Precision: the STATE path must be exact — single-pass reduced-precision
+    # operands break near-unit-circle IIR state propagation over 200 block
+    # steps — so x@W_xs runs at HIGHEST (true f32; on the GPU off the
+    # tensor cores) and the M_ss/M_sy state terms run as exact f32
+    # broadcast multiply-adds. Expressing the state terms as 8 broadcast
+    # terms (instead of a batched einsum) also lets XLA fuse broadcasts +
+    # add + square + reduce into one pass over the (B, g, C) block, so only
+    # the y_x matmul output ever materializes in device memory. The
     # dominant x@W_yx path (~98% of flops) only feeds the windowed energy
-    # (per-block errors do not accumulate; ~0.07 dB vs an 80 dB range), so
-    # it runs at the fast default.
+    # (per-block errors do not accumulate), so it runs at DEFAULT
+    # precision: single-pass TF32 on the GPU's tensor cores, f32 on the
+    # CPU. TF32 holds the float64 oracle contract on noise but not in the
+    # quiet bins of word audio (lsm_tpu/oracles.py; p99 rel err 1.9e-3,
+    # max 6.1e-3 on an H100). 3-pass bf16 holds it there at ~9% more time,
+    # but on the GPU it made data-parallel spikes differ from one device's
+    # (194 of 123M), where TF32 kept them byte-identical.
     hi = jax.lax.Precision.HIGHEST
 
     def step(state, x_block):
@@ -282,7 +287,7 @@ def gtgram_iir(
     _block_iir_matrices) as batched matmuls and emits the sub-block energy
     sum per (batch, channel). Window energies are then exact contiguous
     sums of nwin/g sub-blocks. The full-rate filtered signal never
-    materializes in HBM.
+    materializes in device memory.
     """
     B, S = wave.shape
     nwin, hop, n_cols = gtgram_strides(fs, window_time, hop_time, S)
@@ -308,123 +313,6 @@ def gtgram_iir(
     idx = starts[:, None] + np.arange(w_per)[None, :]          # (n_cols, w_per)
     win_energy = sub_energy[..., idx].sum(-1)                  # (B, C, n_cols)
     return jnp.sqrt(win_energy / nwin)
-
-
-@functools.lru_cache(maxsize=None)
-def _quadratic_matrices(fs: float, channels: int, f_min: float, g: int):
-    """Host-side (f64) constants for the two-phase gtgram's state terms.
-
-    Per sub-block the filtered response splits as y = u + v with
-    u = input response (W_yx x, phase 2 on the MXU) and v = state ring-down
-    (M_sy s). The energy expands EXACTLY as
-
-        sum_m y^2 = sum_m u^2 + [ 2 sum_m u v + sum_m v^2 ]
-
-    and the bracket is computable from (x, s) alone without materializing
-    u or v per sample:
-        2 sum_m u v = 2 sum_s s_s * (W_w x)_s,  W_w[c,s,l] = sum_m M_sy[c,s,m] M_yx[c,l,m]
-        sum_m v^2   = sum_{s,s'} G[c,s,s'] s_s s_s',  G = M_sy M_sy^T per channel
-    Returns
-        w_xq (g, 16C): columns 0..8C   = W_xs (state update, [l, s*C+c]),
-                       columns 8C..16C = W_w  ([l, s*C+c])
-        g_quad (8, 8, C)
-    """
-    m_yx, m_sy, m_xs, m_ss = [
-        m.astype(np.float64) for m in _block_iir_matrices(fs, channels, f_min, g)
-    ]
-    C = channels
-    w_w = np.einsum("csm,clm->cls", m_sy, m_yx)               # (C, L, 8)
-    w_xs_cols = np.ascontiguousarray(m_xs.transpose(1, 2, 0)).reshape(g, 8 * C)
-    w_w_cols = np.ascontiguousarray(w_w.transpose(1, 2, 0)).reshape(g, 8 * C)
-    w_xq = np.concatenate([w_xs_cols, w_w_cols], axis=1).astype(np.float32)
-    g_quad = np.einsum("csm,ctm->stc", m_sy, m_sy).astype(np.float32)
-    m_ss_t = np.ascontiguousarray(m_ss.transpose(1, 2, 0)).astype(np.float32)
-    return w_xq, g_quad, m_ss_t
-
-
-def gtgram_state_energy(
-    blocks_bm: jnp.ndarray,       # (n_sub, B, g) batch-major waveform blocks
-    fs: float,
-    channels: int,
-    f_min: float,
-    g: int,
-    init_state: Optional[jnp.ndarray] = None,   # (B, 8, C); zeros if None
-):
-    """Phase 1 of the two-phase gtgram: exact state scan + per-sub-block
-    state-energy terms.
-
-    Carries only the 8-dim cascade state per (batch, channel) — batch-major
-    with channels on the lane axis, so every broadcast is layout-native —
-    and emits sq[k] = 2*sum_m(u v) + sum_m(v^2) per sub-block: everything
-    the energy needs beyond the pure input response. The state-PROPAGATION
-    MACs (the s->t terms below) run exact f32 (the IIR numerical contract;
-    see CLAUDE.md); the drive matmul runs 3-pass bf16 (HIGH, ~1e-7 rel) —
-    input injection, not recurrence, so its rounding does not accumulate.
-    NOTE this makes the phase-1 state differ from gtgram_iir's (which
-    keeps HIGHEST throughout) at the ~1e-7 level on TPU: bit-equality
-    oracles against gtgram_iir belong on CPU, tolerance oracles on TPU
-    (test_pallas_kernels.py uses rtol 5e-3; measured p99 8.2e-4).
-
-    `init_state` threads the cascade state across chunk boundaries for the
-    streaming two-phase featurizer (gtgram_kernel.gtgram_chunk_two_phase):
-    feeding a signal in chunks performs the identical per-step op sequence
-    as one whole-signal call, so chunking is exact for THIS implementation
-    (the analogue of gtgram_iir_scan's continuation contract).
-    Returns (final_state (B, 8, C), sq (n_sub, C, B)) — batch on lanes,
-    the phase-2 kernel layout.
-    """
-    n_sub, B, g_ = blocks_bm.shape
-    assert g_ == g
-    C = channels
-    w_xq_np, g_quad_np, m_ss_np = _quadratic_matrices(fs, channels, f_min, g)
-    w_xs = jnp.asarray(w_xq_np[:, : 8 * channels])    # (g, 8C)
-    w_w = jnp.asarray(w_xq_np[:, 8 * channels:])      # (g, 8C)
-    g_quad = jnp.asarray(g_quad_np)      # (8, 8, C)
-    m_ss_t = jnp.asarray(m_ss_np)        # (s_in, t_out, C)
-
-    def step(state, x_block):
-        # state: (B, 8, C) at sub-block start; x_block: (B, g).
-        # The STATE-PROPAGATION contract (CLAUDE.md) binds the s->t state
-        # MACs below, which stay exact f32. The drive term is the INPUT
-        # injection: its rounding is a one-time per-block input
-        # perturbation filtered by a stable cascade, not a recurrence
-        # error, so 3-pass bf16 (HIGH, ~1e-7 rel) is safe where single-
-        # pass bf16 (~2e-3) would not be; measured ~1.5 ms faster per
-        # 2400 utterances than the 6-pass HIGHEST it replaced, same p99
-        # parity vs gtgram_iir. The cross term feeds energy only and runs
-        # at the fast default like the phase-2 input response.
-        drive = jnp.dot(
-            x_block, w_xs, precision=jax.lax.Precision.HIGH,
-            preferred_element_type=jnp.float32,
-        ).reshape(B, 8, C)
-        w_term = jnp.dot(
-            x_block, w_w, preferred_element_type=jnp.float32
-        ).reshape(B, 8, C)
-
-        # cross = 2 sum_s s_s (W_w x)_s ; quad = sum_{s,s'} G s_s s_s'.
-        cross = 2.0 * jnp.sum(state * w_term, axis=1)          # (B, C)
-        quad = jnp.zeros_like(cross)
-        for s in range(8):
-            quad = quad + g_quad[s, s][None, :] * state[:, s, :] * state[:, s, :]
-            for t in range(s + 1, 8):
-                quad = quad + (2.0 * g_quad[s, t])[None, :] * (
-                    state[:, s, :] * state[:, t, :]
-                )
-
-        new_state = drive
-        for s in range(8):
-            # new_state[:, t] += state[:, s] * M_ss[c, s, t]
-            new_state = new_state + m_ss_t[s][None, :, :] * state[:, s, :][:, None, :]
-        # Emit (C, B): the phase-2 kernel consumes batch-on-lanes, and a
-        # per-step small transpose fuses into the scan far cheaper than one
-        # 250 MB minor-dim transpose afterwards.
-        return new_state, (cross + quad).T
-
-    init = (
-        jnp.zeros((B, 8, channels), jnp.float32)
-        if init_state is None else init_state
-    )
-    return jax.lax.scan(step, init, blocks_bm, unroll=4)
 
 
 @functools.lru_cache(maxsize=None)

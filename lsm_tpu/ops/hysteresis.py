@@ -8,12 +8,12 @@ holds otherwise. While ON it emits a 1 every bin (level coding). Outputs are
 interleaved: column `time_bin * n_thresholds + t_idx`, so 4 consecutive
 columns per original bin ordered high->low threshold.
 
-TPU-first formulation: the recurrence
+Parallel formulation: the recurrence
     active_t = rising_t OR (active_{t-1} AND holdable_t)
 with rising_t = (x_t > theta) and holdable_t = (x_t >= theta - gap) is a
 composition of boolean affine maps f_t(a) = b_t | (a & c_t), which compose
 closed-form:  (b2, c2) o (b1, c1) = (b2 | (b1 & c2), c1 & c2).
-That makes it an ASSOCIATIVE scan — O(log T) depth on the VPU instead of a
+That makes it an ASSOCIATIVE scan — O(log T) depth instead of a
 100-step sequential loop, and it vectorizes over (batch, filters,
 thresholds) simultaneously.
 """

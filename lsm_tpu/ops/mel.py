@@ -6,7 +6,7 @@ area normalization, fmin=0, fmax=sr/2.
 
 The filterbank is built once in NumPy at trace time (it is a static
 constant) and applied as a single (n_mels, n_freqs) x (n_freqs, frames)
-matmul — MXU work under jit.
+matmul under jit.
 """
 
 from __future__ import annotations

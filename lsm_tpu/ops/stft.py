@@ -1,4 +1,4 @@
-"""Batched STFT for TPU.
+"""Batched STFT.
 
 Semantics match `librosa.stft` defaults as used by
 `librosa.feature.melspectrogram` in the reference (create_dataset.py:45-47):
@@ -7,7 +7,7 @@ center=True with zero ('constant') padding, power=2 magnitude.
 
 Design: framing is expressed as a strided gather with static indices so XLA
 lowers it to a single efficient dynamic-slice/gather; the FFT runs batched
-over (batch, frames) so the TPU FFT unit sees one large 2D batch. Everything
+over (batch, frames) as one large 2D batch. Everything
 is shape-static and jit/vmap/shard_map friendly.
 """
 

@@ -2,9 +2,10 @@
 
 The workload's parallelism (SURVEY.md section 2.4): data parallelism over
 utterances is the primary axis; model parallelism over reservoir neurons is
-available for scaled (10k+) reservoirs. Collectives ride ICI via XLA
-(psum/all_gather under shard_map) — the TPU-native equivalent of the NCCL
-role in GPU stacks.
+available for scaled (10k+) reservoirs. Collectives are XLA's
+(psum/all_gather under shard_map), which it lowers to NCCL on GPUs. The
+mesh follows the algorithm alone: the cards of one host are joined all to
+all, so no axis needs a particular device order within a host.
 """
 
 from __future__ import annotations
@@ -41,9 +42,9 @@ def make_mesh(
 def auto_mesh(min_devices: int = 2) -> Optional[Mesh]:
     """The production default mesh: all devices on the data axis.
 
-    Returns None on a single device (the single-chip jit path needs no
-    mesh). The pipeline calls this so that `python main.py` on a v5e-8
-    shards every stage across the slice without any flags — the reference
+    Returns None on a single device (the single-device jit path needs no
+    mesh). The pipeline calls this so that `python main.py` on a host with
+    several cards shards every stage across them without any flags — the reference
     is a serial one-process loop (extract_lsm_features.py:78), this is the
     SURVEY.md section 2.4a data-parallel replacement.
     """
@@ -120,7 +121,7 @@ def host_local(x):
     Single-host (or already replicated / fully addressable): the array
     itself, untouched — np.asarray and device-side slicing keep their
     usual fast paths. Multi-host sharded: one all-gather to replicated
-    (DCN across hosts) via the cached jitted identity, so every process
+    (across hosts) via the cached jitted identity, so every process
     holds the full value. This is the device->host twin of shard_batch's
     full-batch contract."""
     if (
@@ -151,7 +152,7 @@ def local_stream_rows(n_streams: int, mesh: Optional[Mesh]) -> int:
 
 def place_stream_chunk(chunk: np.ndarray, sharding: Optional[NamedSharding]):
     """Move a host serving chunk to device, stream-sharded when serving on
-    a mesh (the H2D transfer splits across chips and the jitted step sees
+    a mesh (the H2D transfer splits across cards and the jitted step sees
     its operands already laid out — no resharding inside the program).
 
     Multi-host: each process passes its PROCESS-LOCAL stream rows (see
@@ -187,7 +188,7 @@ def replicate_to_mesh(tree, mesh: Mesh):
 
 
 # ---------------------------------------------------------------------------
-# Multi-host (DCN) runtime — SURVEY.md sections 2.4 / 5.8
+# Multi-host runtime — SURVEY.md sections 2.4 / 5.8
 # ---------------------------------------------------------------------------
 
 def init_distributed(
@@ -197,14 +198,16 @@ def init_distributed(
 ) -> None:
     """Join the multi-host runtime (one call per process, before backend use).
 
-    On TPU pod slices `jax.distributed.initialize()` auto-discovers the
-    coordinator from the TPU metadata; elsewhere (multi-host CPU/GPU, or
-    explicit orchestration) pass the coordinator address + process grid.
-    After this, `jax.devices()` is the GLOBAL device list, so `auto_mesh`/
-    `make_mesh`/`multihost_mesh` span the whole slice and XLA routes
-    collectives over ICI within a host and DCN across hosts. Exercised by
+    Pass the coordinator address + process grid explicitly. The layout is
+    ONE PROCESS PER HOST, driving every card of its host: no
+    `local_device_ids` is passed, so a second process on the same host
+    would claim the same cards (and a JAX process reserves most of each
+    card's memory at start-up). After this, `jax.devices()` is the GLOBAL
+    device list, so `auto_mesh`/`make_mesh`/`multihost_mesh` span every
+    host and XLA routes collectives within a host over its interconnect
+    and across hosts over the network. Exercised by
     tests/test_multihost.py on a 2-process x 2-CPU-device grid (gloo
-    collectives stand in for DCN).
+    collectives stand in for the network).
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -217,8 +220,9 @@ def maybe_init_distributed_from_env() -> bool:
     """Env-driven `init_distributed` for the CLI entry points.
 
     Set LSM_TPU_COORDINATOR=host:port, LSM_TPU_NUM_PROCESSES and
-    LSM_TPU_PROCESS_ID on every process (or just LSM_TPU_DISTRIBUTED=1 on
-    a TPU pod, where initialize() auto-discovers) and every stage CLI
+    LSM_TPU_PROCESS_ID on every process — one process per host (see
+    init_distributed) — or LSM_TPU_DISTRIBUTED=1 where the cluster
+    environment lets initialize() discover them, and every stage CLI
     becomes a multi-host SPMD program with no code changes. Returns True
     when the runtime was initialized."""
     import os
@@ -239,10 +243,10 @@ def maybe_init_distributed_from_env() -> bool:
 
 def multihost_mesh(n_model: int = 1) -> Mesh:
     """(data, model) mesh over the global device list, laid out so every
-    model group is INTRA-process: the per-timestep TP all_gathers ride ICI,
-    while the data axis (per-utterance independent work + small psum'd
-    readout reductions) is what crosses DCN — the layout rule from the
-    scaling playbook: put the chatty axis on the fast interconnect.
+    model group is INTRA-process: the per-timestep TP all_gathers stay on
+    the host's card-to-card links, while the data axis (per-utterance
+    independent work + small psum'd readout reductions) is what crosses
+    hosts — put the chatty axis on the fast interconnect.
 
     Requires n_model to divide the per-process device count; devices are
     ordered process-major so reshaping (n_data, n_model) row-major keeps

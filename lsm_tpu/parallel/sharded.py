@@ -11,8 +11,9 @@ the recurrent matrix W (N, N) is sharded column-wise over the 'model' axis —
 each shard owns the update of its neuron slice. Per scan step each shard
 computes (B_local, N) x (N, N/m) locally and all_gathers the new spike slice
 along 'model' so the next step sees the full spike vector. This is the
-standard tensor-parallel RNN decomposition: compute scales 1/m per chip,
-communication is one (B_local, N/m) all-gather per step riding ICI.
+standard tensor-parallel RNN decomposition: compute scales 1/m per card,
+communication is one (B_local, N/m) all-gather per step over the
+card-to-card interconnect.
 """
 
 from __future__ import annotations
@@ -47,10 +48,8 @@ def data_parallel_extract(
 def featurize_dp(audio: jax.Array, fcfg, mesh: Mesh) -> jax.Array:
     """Data-parallel featurization via shard_map.
 
-    Plain jit on a batch-sharded global array cannot partition the Pallas
-    gtgram kernel (Mosaic custom calls have no GSPMD rule); shard_map runs
-    the full single-device featurizer — Pallas kernel included — on each
-    device's local shard. Zero collectives (per-utterance independent).
+    shard_map runs the full single-device featurizer on each device's
+    local shard. Zero collectives (per-utterance independent).
     Requires the global batch divisible by the data-axis size.
     """
     from lsm_tpu.models.frontend import featurize_batch
@@ -78,10 +77,10 @@ def extract_features_dp(
 
     Unlike `data_parallel_extract` (which relies on jit auto-partitioning
     of the XLA scan), this routes each device's local shard through the
-    backend-dispatching `extract_features`, so on TPU every chip runs the
-    fused Pallas LIF kernel on its shard. No collectives are needed — the
-    reservoir is independent per utterance; weights are replicated.
-    Requires the global batch divisible by the data-axis size.
+    representation-dispatching `extract_features` (dense or block-sparse).
+    No collectives are needed — the reservoir is independent per
+    utterance; weights are replicated. Requires the global batch divisible
+    by the data-axis size.
     """
     from lsm_tpu.models.reservoir import extract_features
 

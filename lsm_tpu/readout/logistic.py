@@ -1,6 +1,6 @@
 """Multinomial logistic regression readout, trained on device with L-BFGS.
 
-TPU-native replacement for the reference's
+On-device replacement for the reference's
 `sklearn.LogisticRegression(multi_class="multinomial", max_iter=1000)` fit
 (train_classifier.py:36-41). sklearn's lbfgs solver minimizes
 
@@ -21,6 +21,12 @@ tolerance (tests/test_readout_dp.py).
 
 Also provides a closed-form one-hot ridge readout (normal equations solved
 on device) as a fast alternative.
+
+Precision: every readout matmul runs at READOUT_PRECISION (HIGHEST, true
+f32). The ridge Gram X^T X squares the features' condition number, and
+at DEFAULT precision a GPU runs f32 matmuls as TF32 (~3 decimal digits);
+the L-BFGS loss/gradient matmuls use the same setting so a fit on the
+card agrees with the same fit on the CPU.
 """
 
 from __future__ import annotations
@@ -34,6 +40,13 @@ import numpy as np
 import optax
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
+
+
+READOUT_PRECISION = jax.lax.Precision.HIGHEST
+
+
+def _mm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    return jnp.matmul(a, b, precision=READOUT_PRECISION)
 
 
 class LogisticParams(NamedTuple):
@@ -50,7 +63,7 @@ def _loss_fn(
 ) -> jnp.ndarray:
     """Weighted mean CE + L2/N. `weights` (0/1) masks padded rows so a
     batch padded up to the shard multiple optimizes the unpadded objective."""
-    logits = x @ params.w + params.b
+    logits = _mm(x, params.w) + params.b
     ce = optax.softmax_cross_entropy_with_integer_labels(logits, y)
     if weights is None:
         n_eff = jnp.float32(x.shape[0])
@@ -112,7 +125,7 @@ def fit_logistic(
 
 
 def predict_logits(params: LogisticParams, x: jnp.ndarray) -> jnp.ndarray:
-    return x @ params.w + params.b
+    return _mm(x, params.w) + params.b
 
 
 def predict(params: LogisticParams, x: jnp.ndarray) -> jnp.ndarray:
@@ -126,7 +139,7 @@ def fit_ridge(
     """Closed-form one-hot ridge readout via normal equations.
 
     Solves (X^T X + alpha I) W = X^T Y_onehot with centered features; the
-    Gram matrix is a single (D, N) x (N, D) MXU matmul and, under
+    Gram matrix is a single (D, N) x (N, D) matmul and, under
     shard_map, a psum over batch shards (SURVEY.md section 2.4b).
     """
     n, d = x.shape
@@ -135,10 +148,10 @@ def fit_ridge(
     y_mean = y1.mean(axis=0, keepdims=True)
     xc = x - x_mean
     yc = y1 - y_mean
-    gram = xc.T @ xc + alpha * jnp.eye(d, dtype=jnp.float32)
-    xty = xc.T @ yc
+    gram = _mm(xc.T, xc) + alpha * jnp.eye(d, dtype=jnp.float32)
+    xty = _mm(xc.T, yc)
     w = jax.scipy.linalg.solve(gram, xty, assume_a="pos")
-    b = (y_mean - x_mean @ w)[0]
+    b = (y_mean - _mm(x_mean, w))[0]
     return LogisticParams(w=w, b=b)
 
 
@@ -171,7 +184,7 @@ def fit_logistic_dp(
     """`fit_logistic` with the example axis sharded over the mesh data axis.
 
     The per-shard CE/gradient partial sums become XLA all-reduces (psums
-    riding ICI) inside the compiled LBFGS loop; parameters and optimizer
+    over the device interconnect) inside the compiled LBFGS loop; parameters and optimizer
     state stay replicated. Padded rows carry weight 0, so the optimized
     objective is exactly the single-device one.
     """
@@ -222,9 +235,8 @@ def fit_ridge_dp(
 def _ridge_dp_program(mesh: Mesh, num_classes: int, alpha: float):
     """The jitted shard_map ridge program, cached per (mesh, classes,
     alpha): rebuilding jax.jit(shard_map(...)) inside fit_ridge_dp would
-    defeat the trace cache and re-trace (and, through the remote compile
-    service, recompile) on EVERY call — calibration sweeps and the tests
-    call it repeatedly. jit's own shape cache handles varying (n, d)."""
+    defeat the trace cache and re-trace (and recompile) on EVERY call —
+    calibration sweeps and the tests call it repeatedly. jit's own shape cache handles varying (n, d)."""
     from lsm_tpu.parallel.mesh import DATA_AXIS
 
     def local_fit(x_l, y_l, w_l):
@@ -240,11 +252,11 @@ def _ridge_dp_program(mesh: Mesh, num_classes: int, alpha: float):
         # Left factor weighted (w_i^2 == w_i), so padded rows contribute 0
         # even though centering makes them nonzero.
         xcw = xc * w_l[:, None]
-        gram = jax.lax.psum(xcw.T @ xc, DATA_AXIS)
+        gram = jax.lax.psum(_mm(xcw.T, xc), DATA_AXIS)
         gram = gram + alpha * jnp.eye(x_l.shape[1], dtype=jnp.float32)
-        xty = jax.lax.psum(xcw.T @ (y1 - y_mean), DATA_AXIS)
+        xty = jax.lax.psum(_mm(xcw.T, y1 - y_mean), DATA_AXIS)
         w = jax.scipy.linalg.solve(gram, xty, assume_a="pos")
-        b = (y_mean - x_mean @ w)[0]
+        b = (y_mean - _mm(x_mean, w))[0]
         return w, b
 
     return jax.jit(shard_map(

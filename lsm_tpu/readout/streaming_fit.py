@@ -7,7 +7,8 @@ block, a shifted feature-label cross term, the scaler moments and the
 class counts — and one closed-form solve at the end reproduces
 `fit_ridge(scaler.transform(X_train), y_train)` (logistic.py:123) to float
 tolerance. Host memory stays flat regardless of corpus size; the per-batch
-update is one (D, B) x (B, D) MXU matmul fused with the moment reductions.
+update is one (D, B) x (B, D) matmul fused with the moment reductions,
+at the readout's matmul precision (logistic.READOUT_PRECISION).
 
 Numerics: the Gram accumulates around a fixed shift c (the first batch's
 mean) instead of raw second moments, so the final centering step
@@ -37,7 +38,7 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 
-from lsm_tpu.readout.logistic import LogisticParams
+from lsm_tpu.readout.logistic import LogisticParams, _mm
 from lsm_tpu.readout.scaler import ScalerState
 
 
@@ -98,8 +99,8 @@ def update_ridge_accum(
     fcw = fc * w[:, None]
     return RidgeAccumState(
         shift=state.shift,
-        gram=state.gram + fcw.T @ fc,
-        xte=state.xte + fcw.T @ y1,
+        gram=state.gram + _mm(fcw.T, fc),
+        xte=state.xte + _mm(fcw.T, y1),
         s1=state.s1 + jnp.sum(fcw, axis=0),
         s2=state.s2 + jnp.sum(fc * fcw, axis=0),
         cnt=state.cnt + jnp.sum(y1 * w[:, None], axis=0),

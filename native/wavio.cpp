@@ -1,6 +1,6 @@
 // Native batch WAV decoder for the lsm_tpu data loader.
 //
-// TPU-native counterpart of the reference's audio ingest layer: where the
+// Counterpart of the reference's audio ingest layer: where the
 // reference leans on libsndfile/soxr via librosa (create_dataset.py:26),
 // this library decodes many RIFF/WAVE files in parallel worker threads,
 // downmixes to mono, resamples to the target rate with a windowed-sinc

@@ -249,7 +249,7 @@ def main() -> None:
     args = parser.parse_args()
     if args.save_state_every and not args.save_state:
         # Pure-argparse check: fail before the bundle load / engine
-        # compile / pre-roll (minutes through the remote compile service).
+        # compile / pre-roll.
         print("Error: --save-state-every needs --save-state <path>.",
               file=sys.stderr)
         sys.exit(1)

@@ -11,9 +11,8 @@ benchmark (lsm_tpu.io.dataset.synthetic_audio_batch_hard) is built so that
   - each cue is drawn from overlapping Gaussians -> an intrinsic Bayes
     error no model can saturate past (the task CANNOT hit 1.0);
   - the reference-default flagship config lands mid-band (0.8333 at this
-    size on CPU; 0.775 'original' / 0.817 'all' at n=1200 on TPU — see
-    docs/SENSITIVITY.md, where the default is the argmax of the whole
-    perturbation table).
+    size on CPU — see docs/SENSITIVITY.md, where the default is the
+    argmax of the whole perturbation table).
 
 The oracle has two prongs: the accuracy band AND the diagnostics regime
 (the reference's own health check, extract_lsm_features.py:144-151). The
@@ -31,12 +30,12 @@ from lsm_tpu.config import PipelineConfig, ReservoirConfig
 from lsm_tpu.io import dataset
 from lsm_tpu import pipeline
 
-# Frozen benchmark definition — do not change without recalibrating
-# (tools/sensitivity.py) and updating docs/SENSITIVITY.md.
-N_PER_CLASS = 30
-N_CLASSES = 12
-SEED = 42
-ACC_BAND = (0.76, 0.90)     # CPU defaults measured 0.8333 (2026-08-16)
+# Frozen benchmark definition (lsm_tpu/oracles.py) — do not change without
+# recalibrating (tools/sensitivity.py) and updating docs/SENSITIVITY.md.
+from lsm_tpu.oracles import ACC_BAND
+from lsm_tpu.oracles import HARD_N_CLASSES as N_CLASSES
+from lsm_tpu.oracles import HARD_N_PER_CLASS as N_PER_CLASS
+from lsm_tpu.oracles import HARD_SEED as SEED
 
 
 @pytest.fixture(scope="module")

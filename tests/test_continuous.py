@@ -126,161 +126,6 @@ def _setup(n_streams=2, mesh=None, seed=0, filterbank="gammatone"):
     )
 
 
-def test_chunk_kernel_matches_xla(rng):
-    """The fused chunked LIF kernel (carried state in/out + in-kernel
-    segment summary) must be bit-equal to the XLA scan +
-    reservoir.segment_summary on dyadic-quantized weights, over several
-    chained chunks (state threading included)."""
-    import dataclasses as dc
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from lsm_tpu.ops.pallas.lif_chunk_kernel import simulate_chunk_pallas
-
-    rcfg = ReservoirConfig(
-        num_neurons=128, num_output_neurons=64, small_world_k=16,
-        mean_weight=0.05,
-    )
-    params = res.init_reservoir(rcfg, n_channels=16)
-    q = lambda a: jnp.round(jnp.asarray(a) * 256.0) / 256.0
-    params = dc.replace(
-        params, w_rec=q(params.w_rec), w_in=q(params.w_in),
-        leak=jnp.zeros_like(params.leak),
-    )
-    B, T_c, no, n_pad = 3, 80, 64, params.w_rec.shape[0]
-    c_pad = params.w_in.shape[0]
-    win_len, n_new_win = 40, 2          # multi-window flush path
-
-    v = jnp.zeros((B, n_pad), jnp.float32)
-    refrac = jnp.zeros((B, n_pad), jnp.float32)
-    s_prev = jnp.zeros((B, n_pad), jnp.float32)
-    vx, rx, sx = v, refrac.astype(jnp.int32), s_prev
-
-    for c in range(3):
-        spikes = jnp.asarray(
-            (rng.random((B, c_pad, T_c)) < 0.15).astype(np.uint8)
-        )
-        with pltpu.force_tpu_interpret_mode():
-            v, refrac, s_prev, seg_k, win_k = simulate_chunk_pallas(
-                params, spikes, v, refrac, s_prev, win_len, n_new_win
-            )
-
-        # XLA oracle chunk (mirrors the continuous fallback path).
-        xs_t = jnp.moveaxis(spikes.astype(jnp.float32), -1, 0)
-        w_rec = params.w_rec.astype(jnp.bfloat16)
-        w_in = params.w_in.astype(jnp.bfloat16)
-
-        def step(carry, x_t):
-            vv, rr, ss = carry
-            drive = (
-                jnp.dot(ss.astype(jnp.bfloat16), w_rec,
-                        preferred_element_type=jnp.float32)
-                + jnp.dot(x_t.astype(jnp.bfloat16), w_in,
-                          preferred_element_type=jnp.float32)
-            )
-            vv, rr, spike = res.lif_update(
-                vv, rr, drive, jnp.ones_like(params.leak),
-                params.threshold, params.refractory,
-            )
-            return (vv, rr, spike.astype(jnp.float32)), spike[:, :no]
-
-        (vx, rx, sx), out = jax.lax.scan(step, (vx, rx, sx), xs_t)
-        out = out.transpose(1, 0, 2)
-        seg_x = res.segment_summary(out, params.burst_isi_max)
-        win_x = out.astype(jnp.float32).reshape(
-            B, n_new_win, win_len, no
-        ).sum(axis=2)
-
-        np.testing.assert_array_equal(np.asarray(v), np.asarray(vx))
-        np.testing.assert_array_equal(
-            np.asarray(refrac), np.asarray(rx, np.float32)
-        )
-        np.testing.assert_array_equal(np.asarray(s_prev), np.asarray(sx))
-        for k in seg_x:
-            np.testing.assert_array_equal(
-                np.asarray(seg_k[k]), np.asarray(seg_x[k]), err_msg=f"{c}:{k}"
-            )
-        np.testing.assert_array_equal(np.asarray(win_k), np.asarray(win_x))
-
-
-def test_sparse_chunk_kernel_matches_xla(rng):
-    """The block-sparse chunked kernel (carried plane state + in-kernel
-    segment summary) == the XLA sparse chunk scan on dyadic weights,
-    across chained chunks."""
-    import dataclasses as dc
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from lsm_tpu.models import sparse
-    from lsm_tpu.models.sparse import sparse_drive
-    from lsm_tpu.ops.pallas.sparse_lif_chunk_kernel import (
-        simulate_chunk_sparse_pallas,
-    )
-
-    rcfg = ReservoirConfig(
-        num_neurons=256, num_output_neurons=128, small_world_k=52,
-        mean_weight=0.03, sparse=True,
-    )
-    sp = sparse.init_reservoir_sparse(rcfg, n_channels=16)
-    q = lambda a: jnp.round(jnp.asarray(a) * 256.0) / 256.0
-    sp = dc.replace(
-        sp, w_blocks=q(sp.w_blocks), w_in=q(sp.w_in),
-        leak=jnp.zeros_like(sp.leak),
-    )
-    B, T_c, n, no = 3, 80, 256, 128
-    c_pad = sp.w_in.shape[0]
-    win_len, n_new_win = 40, 2
-
-    v = jnp.zeros((B, n), jnp.float32)
-    refrac = jnp.zeros((B, n), jnp.float32)
-    s_prev = jnp.zeros((B, n), jnp.float32)
-    vx, rx, sx = v, refrac.astype(jnp.int32), s_prev
-    wb = sp.w_blocks.astype(jnp.bfloat16)
-    w_in = sp.w_in.astype(jnp.bfloat16)
-
-    for c in range(3):
-        spikes = jnp.asarray(
-            (rng.random((B, c_pad, T_c)) < 0.15).astype(np.uint8)
-        )
-        with pltpu.force_tpu_interpret_mode():
-            v, refrac, s_prev, seg_k, win_k = simulate_chunk_sparse_pallas(
-                sp, spikes, v, refrac, s_prev, win_len, n_new_win,
-                b_tile=128,
-            )
-
-        xs_t = jnp.moveaxis(spikes.astype(jnp.float32), -1, 0)
-
-        def step(carry, x_t):
-            vv, rr, ss = carry
-            drive = sparse_drive(ss, wb, sp.src_idx, jnp.bfloat16) + jnp.dot(
-                x_t.astype(jnp.bfloat16), w_in,
-                preferred_element_type=jnp.float32,
-            )
-            vv, rr, spike = res.lif_update(
-                vv, rr, drive, jnp.ones_like(sp.leak),
-                sp.threshold, sp.refractory,
-            )
-            return (vv, rr, spike.astype(jnp.float32)), spike[:, :no]
-
-        (vx, rx, sx), out = jax.lax.scan(step, (vx, rx, sx), xs_t)
-        out = out.transpose(1, 0, 2)
-        seg_x = res.segment_summary(out, sp.burst_isi_max)
-        win_x = out.astype(jnp.float32).reshape(
-            B, n_new_win, win_len, no
-        ).sum(axis=2)
-
-        np.testing.assert_array_equal(np.asarray(v), np.asarray(vx))
-        np.testing.assert_array_equal(
-            np.asarray(refrac), np.asarray(rx, np.float32)
-        )
-        np.testing.assert_array_equal(np.asarray(s_prev), np.asarray(sx))
-        for k in seg_x:
-            np.testing.assert_array_equal(
-                np.asarray(seg_k[k]), np.asarray(seg_x[k]), err_msg=f"{c}:{k}"
-            )
-        np.testing.assert_array_equal(np.asarray(win_k), np.asarray(win_x))
-
-
 def test_continuous_stream_drives_reservoir(rng):
     kws = _setup(n_streams=2)
     silent = kws.step(np.zeros((2, 1600), np.float32))
@@ -787,42 +632,3 @@ def test_continuous_step_compact_mesh(rng):
         np.testing.assert_allclose(ms, mm, rtol=2e-3, atol=0.5)
 
 
-def test_continuous_two_phase_gtgram_matches_xla_path(rng):
-    """ContinuousKWS with the two-phase chunk featurizer forced on
-    (interpret mode) vs the XLA-scan twin: same audio, logits within the
-    documented kernel tolerance class, and the carried IIR state stays in
-    lockstep (both engines remain well-posed across chunks)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    a = _setup(n_streams=2)                               # XLA scan path
-    assert a.gtgram_two_phase is False
-    b = _setup_two_phase()
-    assert b.gtgram_two_phase is True
-    audio = (rng.standard_normal((2, 4800)) * 0.2).astype(np.float32)
-    for c in range(3):
-        chunk = audio[:, c * 1600:(c + 1) * 1600]
-        la = a.step(chunk)
-        with pltpu.force_tpu_interpret_mode():
-            lb = b.step(chunk)
-        np.testing.assert_allclose(la, lb, rtol=5e-2, atol=5e-2)
-
-
-def _setup_two_phase():
-    fcfg = FrontendConfig(n_filters=16, filterbank="gammatone")
-    rcfg = ReservoirConfig(
-        num_neurons=128, num_output_neurons=64, small_world_k=16,
-        mean_weight=0.03,
-    )
-    params = res.init_reservoir(rcfg, n_channels=16)
-    d = 5 * 64
-    rng = np.random.default_rng(0)
-    readout = logistic.LogisticParams(
-        w=jnp.asarray(rng.normal(0, 0.1, (d, 4)).astype(np.float32)),
-        b=jnp.zeros((4,), jnp.float32),
-    )
-    st = scaler.ScalerState(
-        mean=jnp.zeros((d,), jnp.float32), scale=jnp.ones((d,), jnp.float32)
-    )
-    return ContinuousKWS(
-        params, readout, st, fcfg, "original", 2, gtgram_two_phase=True
-    )

@@ -6,7 +6,7 @@ chunk-lookahead normalization, carried membrane) are policed by the
 matched-readout protocol: calibrate the readout on continuous-mode
 features (fit_continuous_readout, carried-state condition), serve
 continuous, compare against the exact batch pipeline on the same frozen
-hard benchmark. High-powered TPU measurements (n_test=1224,
+hard benchmark. High-powered measurements (n_test=1224,
 tools/bench_continuous.py --n-per-class 340): gammatone matched 0.8100
 vs exact 0.8125 — delta -0.0025 +- 0.0137 SE (2026-08-17); mel matched
 0.7561 vs exact 0.7402 — delta +0.0159 +- 0.0154 SE (2026-08-19). Both
@@ -103,7 +103,7 @@ def test_matched_continuous_readout_lands_in_band(filterbank, min_acc):
     assert exact_acc - acc <= MAX_DELTA, (
         f"matched continuous {filterbank} delta {exact_acc - acc:+.4f} "
         f"exceeds {MAX_DELTA} — continuous-mode approximations are "
-        "costing accuracy beyond the frozen contract (TPU n=1224 "
+        "costing accuracy beyond the frozen contract (n=1224 "
         "measured -0.0025 gammatone; recalibrate via "
         "tools/bench_continuous.py only if the protocol changed "
         "intentionally)"

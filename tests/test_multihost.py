@@ -1,8 +1,8 @@
-"""Multi-host (DCN) runtime path: parallel/mesh.py init_distributed et al.
+"""Multi-host runtime path: parallel/mesh.py init_distributed et al.
 
-SURVEY.md sections 2.4/5.8 name DCN across hosts; no pod is available here,
-so the test stands up a REAL 2-process JAX distributed runtime on CPU
-(2 local devices per process, gloo collectives standing in for DCN) and
+SURVEY.md sections 2.4/5.8 name collectives across hosts; the test stands
+up a REAL 2-process JAX distributed runtime on CPU (2 local devices per
+process, gloo collectives standing in for the network) and
 runs the production DP extraction + psum'd ridge fit over the global
 4-device mesh. Process 0's results must match a single-process reference
 computed in this test process — the cross-process collectives reproduce
@@ -89,7 +89,7 @@ WORKER = textwrap.dedent(
     # --- Corpus-scale streaming fit across the 2 processes ---------------
     # extract_and_train_streaming follows the SPMD batch contract (every
     # process iterates the same shards); readout='logistic' additionally
-    # holds the streamed feature rows in a GLOBAL data-axis-sharded HBM
+    # holds the streamed feature rows in a GLOBAL data-axis-sharded device
     # buffer (each process stores only its addressable shard) and runs
     # the LBFGS fit as one collective program. Round 5: this lifted the
     # former single-process restriction — the oracle below pins the
@@ -117,7 +117,7 @@ WORKER = textwrap.dedent(
     # Each process feeds its PROCESS-LOCAL stream rows (4 of 8); logits
     # all-gather back replicated. Round 4: the engines' state/weight
     # placement is process-aware, so an always-on server scales across
-    # DCN exactly like the batch stages.
+    # hosts exactly like the batch stages.
     from lsm_tpu.config import FrontendConfig
     from lsm_tpu.models.continuous import ContinuousKWS
     from lsm_tpu.readout.scaler import ScalerState

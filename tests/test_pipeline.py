@@ -48,6 +48,26 @@ def test_stratified_split_is_stratified_and_deterministic(rng):
         assert (yt1 == c).sum() == 6
 
 
+@pytest.mark.parametrize("counts,test_size,seed", [
+    ((200,) * 12, 0.2, 42),          # the flagship synthetic corpus shape
+    ((7, 13, 5, 9, 11), 0.2, 42),    # unbalanced: fractional-share ties
+    ((3, 3, 4, 10), 0.25, 7),
+])
+def test_stratified_split_matches_sklearn(counts, test_size, seed):
+    """The NumPy split is sklearn's train_test_split(stratify=y) draw for
+    draw, so the split does not depend on what is installed."""
+    sk = pytest.importorskip("sklearn.model_selection")
+    y = np.repeat(np.arange(len(counts)), counts).astype(np.int32)
+    y = y[np.random.default_rng(seed).permutation(len(y))]
+    x = np.arange(len(y) * 2, dtype=np.float32).reshape(len(y), 2)
+    got = stratified_split(x, y, test_size, seed)
+    want = sk.train_test_split(
+        x, y, test_size=test_size, random_state=seed, stratify=y
+    )
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.slow
 def test_end_to_end_synthetic_accuracy():
     cfg = _small_cfg(n_classes=4)

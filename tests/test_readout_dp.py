@@ -1,7 +1,7 @@
 """Data-parallel readout fits match single-device fits (SURVEY.md 2.4b).
 
 The reference fits one sklearn LogisticRegression on the host
-(train_classifier.py:36-41); the TPU build shards the example axis over the
+(train_classifier.py:36-41); this build shards the example axis over the
 mesh and reduces the loss/gradient (logistic) or Gram/XtY blocks (ridge)
 across devices. These tests run on the 8-virtual-device CPU mesh and assert
 the distributed fits reproduce the single-device ones.

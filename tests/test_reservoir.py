@@ -9,48 +9,8 @@ from lsm_tpu.config import ReservoirConfig, FEATURE_SETS
 from lsm_tpu.models import reservoir as res
 from lsm_tpu.models.calibration import calibrate_weight, w_critico
 from lsm_tpu.models.diagnostics import run_network_diagnostics
-
-
-def _numpy_lif_raster(params, spikes_in):
-    """Sequential float32 LIF oracle. spikes_in: (C, T). Returns (T, N) bool."""
-    w_rec = np.asarray(params.w_rec, np.float32)
-    w_in = np.asarray(params.w_in, np.float32)
-    leak_keep = 1.0 - np.asarray(params.leak, np.float32)
-    n_pad = w_rec.shape[0]
-    C, T = spikes_in.shape
-    x = np.zeros((w_in.shape[0], T), np.float32)
-    x[:C] = spikes_in
-
-    v = np.zeros(n_pad, np.float32)
-    refrac = np.zeros(n_pad, np.int32)
-    s_prev = np.zeros(n_pad, np.float32)
-    raster = np.zeros((T, n_pad), bool)
-    for t in range(T):
-        drive = s_prev @ w_rec + x[:, t] @ w_in
-        active = refrac == 0
-        v_new = np.where(active, v * leak_keep + drive, 0.0).astype(np.float32)
-        spike = (v_new >= params.threshold) & active
-        v = np.where(spike, 0.0, v_new).astype(np.float32)
-        refrac = np.where(spike, params.refractory, np.maximum(refrac - 1, 0))
-        s_prev = spike.astype(np.float32)
-        raster[t] = spike
-    return raster
-
-
-def _quantize(params):
-    """Snap weights to a dyadic grid and zero the leak so all arithmetic in
-    both the oracle and the jitted path is EXACT in float32 — spike decisions
-    then cannot flip on summation-order differences."""
-    import dataclasses as dc
-    import jax.numpy as jnp
-
-    q = lambda a: jnp.round(jnp.asarray(a) * 256.0) / 256.0
-    return dc.replace(
-        params,
-        w_rec=q(params.w_rec),
-        w_in=q(params.w_in),
-        leak=jnp.zeros_like(params.leak),
-    )
+from lsm_tpu.oracles import lif_raster as _numpy_lif_raster
+from lsm_tpu.oracles import quantize_dyadic as _quantize
 
 
 def _small_params(seed=42, n=64, no=16, c=8):

@@ -215,6 +215,46 @@ def test_snapshot_identity_validation(setup, tmp_path):
         load_serving_state(bogus, kws)
 
 
+def test_v3_snapshot_roundtrip_has_no_dispatch_row(setup, tmp_path):
+    """v3 header: no gtgram_two_phase identity row; loads back into an
+    identical engine."""
+    import json
+
+    from lsm_tpu.io.serving_state import read_snapshot_meta
+
+    params, readout, st, fcfg = setup
+    kws = ContinuousKWS(params, readout, st, fcfg, "original", 2)
+    kws.step(_audio(2, 1, 1600)[0])
+    path = tmp_path / "state.npz"
+    save_serving_state(path, kws)
+    meta = read_snapshot_meta(path)
+    assert meta["format"] == "lsm_tpu.serving_state.v3"
+    assert "gtgram_two_phase" not in meta
+    with np.load(path) as data:
+        assert json.loads(str(data["meta"])) == meta
+    fresh = ContinuousKWS(params, readout, st, fcfg, "original", 2)
+    assert load_serving_state(path, fresh)["format"] == meta["format"]
+
+
+def test_v2_snapshot_refused_by_version(setup, tmp_path):
+    """A v2 file (with its gtgram_two_phase row) fails with the
+    versioned-format error, never a field-by-field mismatch."""
+    import json
+
+    params, readout, st, fcfg = setup
+    kws = ContinuousKWS(params, readout, st, fcfg, "original", 2)
+    path = tmp_path / "state.npz"
+    save_serving_state(path, kws)
+    with np.load(path) as data:
+        arrays = {k: data[k] for k in data.files if k != "meta"}
+        meta = json.loads(str(data["meta"]))
+    meta.update(format="lsm_tpu.serving_state.v2", gtgram_two_phase=False)
+    v2 = tmp_path / "v2.npz"
+    np.savez(v2, meta=json.dumps(meta), **arrays)
+    with pytest.raises(ValueError, match="has format 'lsm_tpu.serving_state.v2'"):
+        load_serving_state(v2, kws)
+
+
 def test_restore_rejects_corrupt_leaf_shapes(setup):
     params, readout, st, fcfg = setup
     kws = ContinuousKWS(params, readout, st, fcfg, "original", 2)
@@ -405,27 +445,6 @@ def test_leaf_fingerprint_contract():
     small = rng.standard_normal(64).astype(np.float32)
     assert _leaf_fingerprint(small) == _leaf_fingerprint(jnp.asarray(small))
     assert _leaf_fingerprint(small[::-1].copy()) != _leaf_fingerprint(small)
-
-
-def test_snapshot_rejects_gtgram_dispatch_mismatch(setup, tmp_path):
-    """The featurizer dispatch (two-phase Pallas kernel vs XLA chunk
-    scan) is part of the numeric identity: they agree only to ~8e-4
-    (p99), so carried IIR/normalization state from one must not continue
-    under the other."""
-    from lsm_tpu.io.serving_state import migrate_streams
-
-    params, readout, st, fcfg = setup
-    src = ContinuousKWS(params, readout, st, fcfg, "original", 2)
-    assert not src.gtgram_two_phase  # CPU tests default to the XLA scan
-    path = tmp_path / "state.npz"
-    save_serving_state(path, src)
-    forced = ContinuousKWS(
-        params, readout, st, fcfg, "original", 2, gtgram_two_phase=True
-    )
-    with pytest.raises(ValueError, match="gammatone dispatch"):
-        load_serving_state(path, forced)
-    with pytest.raises(ValueError, match="gammatone dispatch"):
-        migrate_streams(src, forced, 0, 0)
 
 
 def test_restore_rejects_truncated_file(setup, tmp_path):

@@ -56,8 +56,7 @@ def render(path: Path, info: dict) -> str:
     if meta.get("engine") == "continuous":
         lines.append(
             f"  geometry:    chunk_len={meta.get('chunk_len')} "
-            f"norm_decay={meta.get('norm_decay_db_per_bin')} "
-            f"gtgram_two_phase={meta.get('gtgram_two_phase')}"
+            f"norm_decay={meta.get('norm_decay_db_per_bin')}"
         )
     pool = meta.get("pool")
     if pool:
